@@ -92,6 +92,30 @@ class Camera:
                 jnp.asarray(self.up, jnp.float32))
 
 
+def id_uniform(key: jax.Array, ids: jnp.ndarray, n: int) -> jnp.ndarray:
+    """(R, n) uniforms in [0, 1), n <= 4, keyed by an integer ID per lane
+    (< 2^30), not by array position: a lane's draws do not depend on the
+    batch it is traced in, so images are reproducible across lane
+    placements (regroup, staged width shrink, cross-device re-sharding,
+    a different device count).
+
+    ONE threefry sweep. Counter layout: ``m`` (n rounded up to even)
+    segments [id, id + 2^30, id + 2^31, ...] — threefry_2x32 splits an
+    even-length counter in half, so cipher block i pairs segment k with
+    segment k + m/2 of the SAME id: every block is a function of the id
+    only, never of the array length or position. The first n output
+    segments are the draws."""
+    from jax._src import prng as _prng
+    m = n + n % 2
+    kd = jax.random.key_data(key).astype(jnp.uint32)
+    i = ids.astype(jnp.uint32)
+    cnt = jnp.concatenate([i + jnp.uint32(k << 30) for k in range(m)])
+    bits = _prng.threefry_2x32((kd[0], kd[1]), cnt)
+    f = jax.lax.bitcast_convert_type(
+        (bits >> 9) | jnp.uint32(0x3F800000), jnp.float32) - 1.0
+    return f.reshape(m, -1)[:n].T
+
+
 def generate_pixel_rays(cam_arrays, px: jnp.ndarray, py: jnp.ndarray,
                         key: jax.Array | None = None,
                         tmin: float = 0.0, tmax: float = 1e6,
@@ -104,19 +128,22 @@ def generate_pixel_rays(cam_arrays, px: jnp.ndarray, py: jnp.ndarray,
 
     Args:
       cam_arrays: ``Camera.as_arrays()`` output (traceable).
-      px, py: ``(R,)`` integer/float pixel coordinates.
-      key: PRNG key for jitter, or None for pixel-center sampling.
+      px, py: ``(R,)`` integer pixel coordinates.
+      key: PRNG key for jitter, or None for pixel-center sampling. The
+        jitter is keyed by PIXEL (see :func:`id_uniform`), so a pixel
+        gets the same ray whichever device or batch position traces it.
     """
     origin, view, right, up = cam_arrays
+    if jitter is None and key is not None:
+        pix = (py.astype(jnp.uint32) << jnp.uint32(16)) | px.astype(
+            jnp.uint32)
+        jit = id_uniform(key, pix, 2)
+        jitter = (jit[:, 0], jit[:, 1])
     px = px.astype(jnp.float32)
     py = py.astype(jnp.float32)
     if jitter is not None:
         px = px + jitter[0]
         py = py + jitter[1]
-    elif key is not None:
-        jit = jax.random.uniform(key, (2, px.shape[0]), jnp.float32)
-        px = px + jit[0]
-        py = py + jit[1]
     else:
         px = px + 0.5
         py = py + 0.5

@@ -2,7 +2,7 @@
 (reference RayAccelerator.h:95-105, RayAccelerator.cpp:417-427, 448-727).
 
 The reference context owns worker threads, a ray-stream pool and OpenCL
-state; under XLA all of that collapses into compiled programs, so the TPU
+state; under XLA all of that collapses into compiled programs, so the
 context holds only the configuration, the device set and the optional
 multi-chip mesh. It stays a first-class object because scene compilation
 and renderers are parameterized by it, mirroring the reference API shape.
@@ -20,9 +20,9 @@ from rayaccel_tpu.config import Configuration, ContextInfo, default_configuratio
 
 def init() -> None:
     """Analog of racc::init (RayAccelerator.cpp:417-423). The reference
-    disables denormals (FTZ/DAZ) and boots Embree; TPUs flush denormals in
-    hardware and there is no library to boot, so this only asserts the
-    float32 default (x64 mode would silently double every buffer)."""
+    disables denormals (FTZ/DAZ) and boots Embree; XLA sets its own
+    floating-point modes and there is no library to boot, so this only
+    asserts the float32 default (x64 mode would silently double every buffer)."""
     if jax.config.read("jax_enable_x64"):
         raise RuntimeError("rayaccel_tpu requires float32 mode (jax_enable_x64=False)")
 
@@ -45,7 +45,7 @@ class Context:
 def create_context(configuration: Optional[Configuration] = None,
                    devices=None) -> Context:
     """Analog of racc::createContext (RayAccelerator.cpp:448-727). Stream
-    pool sizing, page-aligned allocation and worker startup have no TPU
+    pool sizing, page-aligned allocation and worker startup have no XLA
     equivalent; what remains is device selection and (optionally) building
     the tile-parallel mesh."""
     cfg = configuration or default_configuration()

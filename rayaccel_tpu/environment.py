@@ -24,10 +24,8 @@ class Environment(NamedTuple):
 
     ``quad`` is a precomputed (H*W, 12) clamped 2x2-neighborhood table
     ([p00 p10 p01 p11] rgb per base texel): the bilinear lookup becomes
-    ONE row gather from a small table (~1.6-1.9 ns/row regardless of
-    column count, tools/probe_gather_attr.py) instead of the one-hot
-    matmul pair (~6 ns/ray) — the frame's deferred env pass runs at
-    ~1.3N piece rows, so this is worth ~5 ms/frame at 983k lanes."""
+    ONE row gather from a small table instead of four gathers or the
+    one-hot matmul pair."""
 
     pixels: jnp.ndarray  # (H, W, 3) float32
     quad: jnp.ndarray | None = None  # (H*W, 12) float32 neighborhoods
@@ -85,10 +83,10 @@ def sample_environment_onehot(env: Environment, d: jnp.ndarray) -> jnp.ndarray:
 
         rgb_r = wy_r^T  P  wx_r   =>   einsum('rh,hwc,rw->rc')
 
-    i.e. one (R,H)@(H,W*3) matmul and a (R,W)-weighted reduce — no per-ray
-    gathers (TPU gathers run ~100M rows/s; these contractions are ~1ns/ray
-    for typical probe sizes). Falls back to the gather path for probes
-    too large for the dense contraction.
+    i.e. one (R,H)@(H,W*3) matmul at HIGHEST precision and a
+    (R,W)-weighted reduce. With the precomputed quad table (the default
+    from create_environment) this is instead ONE row gather. Falls back to
+    the 4-tap gather path for probes too large for the dense contraction.
     """
     w, h = env.width, env.height
     if env.quad is not None:

@@ -3,8 +3,8 @@
 The TrianglePair test is the math of the reference's OpenCL
 ``trianglePairIntersect`` (reference Kernels.h:36-115) — two triangles
 sharing edge e1 intersected with one shared cross-product set — expressed
-with plain float selects instead of sign-bit integer tricks (the VPU has
-predication; the bit tricks bought nothing on TPU and cost readability).
+with plain float selects instead of sign-bit integer tricks (vectorized
+selects are as cheap, and the bit tricks cost readability).
 
 The slab AABB test mirrors ``aabbIntersect`` (Kernels.h:117-135) in
 mad-form: tNear = bbmin * invDir + OoD with OoD = -origin * invDir.
@@ -51,9 +51,9 @@ def aabb_hit(bbmin, bbmax, inv_d, ood, tmin, tmax):
 
 def aabb_hit_soa(bmin, bmax, inv_d, ood, tmin, tmax):
     """Component-wise slab test: every argument is a tuple of three (R,)
-    arrays (or (R,) scalars for tmin/tmax). TPU-native layout: flat lane
-    vectors keep the VPU's 8x128 lanes fully packed, where (R, 3) arrays
-    would waste the 128-wide minor dimension."""
+    arrays (or (R,) scalars for tmin/tmax). Flat lane vectors give
+    contiguous loads, where (R, 3) arrays would stride the minor
+    dimension."""
     t0 = tmin
     t1 = tmax
     for a in range(3):

@@ -1,6 +1,6 @@
 """Lockstep wavefront BVH traversal compiled by XLA.
 
-TPU-native re-design of the reference's two traversal engines (the
+Wavefront re-design of the reference's two traversal engines (the
 per-ray stack loop of the OpenCL kernel, reference Kernels.h:139-242, and
 the Embree CPU path, Scene.cpp:374-484): every ray in the wave runs the
 same state machine in lockstep under one ``lax.while_loop``; per-ray
@@ -16,7 +16,7 @@ Per iteration each lane is either
   - popping / done.
 
 The loop runs until every lane is DONE; lanes that finish early idle (the
-VPU analog of SIMT divergence). On miss the environment radiance is folded
+lockstep analog of SIMT divergence). On miss the environment radiance is folded
 into the result, mirroring the Result hit/miss union contract
 (RayAccelerator.h:66-76, Kernels.h:213-222).
 """
@@ -58,8 +58,8 @@ def trace_bvh(scene: TpuScene, rays: Rays, env: Environment | None = None,
     """
     R = rays.o.shape[0]
 
-    # Unpack to flat per-component lane vectors once: (R,) arrays keep the
-    # VPU's 8x128 lanes fully packed ((R, 3) layouts waste the minor dim).
+    # Unpack to flat per-component lane vectors once: (R,) arrays give
+    # contiguous, coalesced loads ((R, 3) layouts stride the minor dim).
     o = tuple(rays.o[:, a] for a in range(3))
     inv3 = safe_inv_dir(rays.d)
     d = tuple(rays.d[:, a] for a in range(3))
@@ -72,8 +72,8 @@ def trace_bvh(scene: TpuScene, rays: Rays, env: Environment | None = None,
         cur0 = jnp.where(active, jnp.int32(0), DONE)
 
     # Per-ray stacks live TRANSPOSED, (depth, R): pushes/pops are one-hot
-    # level-mask blends over fully-packed lanes (a per-lane scatter in
-    # (R, depth) layout is ~200x slower on TPU).
+    # level-mask blends over contiguous lanes instead of per-lane
+    # scatters into an (R, depth) layout.
     level = jax.lax.broadcasted_iota(jnp.int32, (stack_depth, R), 0)
     # Carry inits derive from ray inputs so the loop typechecks under
     # shard_map (constant inits lack the varying-axes tag).
@@ -277,18 +277,12 @@ def trace(scene, rays: Rays, env: Environment | None = None,
     """Backend dispatcher, analog of the reference's engine selection
     (hybrid scheduler routing streams to Embree or the OpenCL kernel,
     RayAccelerator.cpp:268-300). ``scene`` is a TpuScene for the
-    xla/bruteforce engines or a ClusterScene for mxu/pallas."""
+    xla/bruteforce engines or a ClusterScene for mxu."""
     if backend == "xla":
         return trace_bvh(scene, rays, env, stack_depth=stack_depth)
     if backend == "mxu":
         from rayaccel_tpu.ops.trace_mxu import trace_mxu
         return trace_mxu(scene, rays, env).hits
-    if backend == "pallas":
-        from rayaccel_tpu.ops.trace_pallas import trace_mxu_pallas
-        return trace_mxu_pallas(scene, rays, env)[0].hits
-    if backend == "sparse":
-        from rayaccel_tpu.ops.trace_sparse import trace_sparse
-        return trace_sparse(scene, rays, env)[0].hits
     if backend == "bruteforce":
         from rayaccel_tpu.ops.bruteforce import trace_bruteforce
         hits = trace_bruteforce(scene.tri_verts, rays)
@@ -297,4 +291,6 @@ def trace(scene, rays: Rays, env: Environment | None = None,
             rgb = sample_environment_onehot(env, rays.d)
             hits = hits._replace(miss_rgb=jnp.where(miss[:, None], rgb, 0.0))
         return hits
-    raise ValueError(f"unknown backend {backend!r}")
+    from rayaccel_tpu.config import BACKENDS
+    raise ValueError(f"unknown backend {backend!r}; the engines are "
+                     f"{', '.join(BACKENDS)}")

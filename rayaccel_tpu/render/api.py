@@ -31,7 +31,7 @@ def render(context: Context, scene, environment, renderer,
     ``_bound_env``), not ``renderer.scene`` — with a mesh context the
     latter is the replicated tree, so comparing against it would
     re-replicate and recompile on EVERY re-publish of the same scene
-    (ADVICE r3: a full XLA recompile per frame)."""
+    (a full XLA recompile per frame)."""
     rebind = False
     if scene is not None and scene is not getattr(renderer, "_bound_scene",
                                                   renderer.scene):

@@ -7,9 +7,9 @@ intersectionCost=1 (Bvh2.cpp:462-475) and a forced median split whenever a
 would-be leaf exceeds 127 triangles (Bvh2.cpp:468-485, required because the
 device leaf encoding packs the count into 8 bits, Scene.cpp:298).
 
-Redesigned for the host of a TPU system: the reference's thread-pool
-task recursion and AVX sweeps become vectorized NumPy sweeps with an
-explicit work stack (no recursion-depth limits). An optional exact check
+Redesigned for the host side of an accelerator system: the reference's
+thread-pool task recursion and AVX sweeps become vectorized NumPy sweeps
+with an explicit work stack (no recursion-depth limits). An optional exact check
 :func:`validate_bvh` encodes the structural invariants used by tests.
 """
 

@@ -1,10 +1,8 @@
-"""Cluster scene compiler for the MXU-dense traversal backend.
+"""Cluster scene compiler for the cluster-dense ("mxu") traversal engine.
 
-TPU redesign rationale: per-lane gathers on TPU run at ~100M rows/s
-(measured, independent of row width), so any traversal that fetches node
-or triangle data per ray per step is capped at ~5-10 Mrays/s. The MXU,
-in contrast, sustains tens of G ray-triangle tests/s. This module
-restructures the scene so intersection becomes dense linear algebra:
+Rationale: a traversal that fetches node or triangle data per ray per
+step is bound by per-lane gathers; this module restructures the scene so
+intersection becomes dense per-tile linear algebra instead:
 
 - The SAH BVH2 is cut into *clusters*: maximal subtrees holding at most
   ``cluster_size`` triangles. Because the builder assigns each subtree a
@@ -21,15 +19,15 @@ restructures the scene so intersection becomes dense linear algebra:
       u_num = (d x o) . (-e2)  + d . (-(e2 x v0))
       v_num = (d x o) . e1     + d . (-(v0 x e1))
 
-  so a whole (rays x cluster) block is ONE (R,16)@(16,4C) matmul on the
-  MXU, with u = u_num/det etc. decoded on the VPU.
+  so a whole (rays x cluster) block is ONE (R,16)@(16,4C) float32
+  product, with u = u_num/det etc. decoded elementwise.
 
-- Per-triangle shading attributes live in per-cluster rows fetched by
-  one-hot matmul at hit time, eliminating shading gathers too.
+- Per-triangle shading attributes live in per-cluster rows fetched by one
+  row gather of the winner at hit time (no per-vertex gathers).
 
 This plays the role the OpenCL BVH2 + TrianglePair buffers play for the
 reference's iGPU (Scene.cpp:216-346) — the scene form consumed by the
-throughput device — re-derived for a systolic-array machine.
+throughput engine.
 """
 
 from __future__ import annotations
@@ -42,29 +40,25 @@ import numpy as np
 from rayaccel_tpu.scene.bvh import Bvh2, KIND_LEAF, build_bvh
 from rayaccel_tpu.scene.data import SceneData
 
-RAY_FEATURES = 16   # 10 used: d(3), o(3), d x o(3), 1; padded for the MXU
+RAY_FEATURES = 16   # 10 used: d(3), o(3), d x o(3), 1; padded to 16
 # Per-triangle attribute row. The winner attr gather runs at FULL pool
-# width every bounce (~1.25ns/element at 983k rows, docs/PERF_NOTES.md),
-# so the row is kept as narrow as exactness allows: the 15 shading
-# floats + material id ride as bf16 pairs in 8 f32 words (2e-3 rel —
-# under interpolation/normalization noise), the geometric normal is
-# DERIVED from the exact stored edges (same winding and formula as
-# scene/data.py compute_face_normals), and only [v0, e1, e2] + tri id
-# stay exact f32 for the winner-reconstruction Moller-Trumbore.
+# width every bounce, so the row is kept narrow: the 15 shading floats +
+# material id ride as bf16 pairs in 8 f32 words (2e-3 rel — under
+# interpolation/normalization noise), the geometric normal is DERIVED from
+# the exact stored edges (same winding and formula as scene/data.py
+# compute_face_normals), and [v0, e1, e2] + tri id stay exact f32 (v0 and
+# the id were read only by the removed winner-reconstruction kernels).
 ATTR_COLS = 18
 ATTR_PACK_COLS = 5    # bf16 pairs (hi|lo): [n0x|n0y, n0z|n1x, n1y|n1z,
                       #  n2x|n2y, n2z|mat]
 ATTR_TRI_ID_COL = 5   # original triangle id as raw int32 bits (f32 container)
-ATTR_GEOM_COL = 6     # [v0, e1, e2] exact geometry rides in cols 6:15 so
-                      # winner reconstruction needs ONE row gather
-                      # (per-lane gathers are row-count bound, ~90M rows/s)
+ATTR_GEOM_COL = 6     # [v0, e1, e2] exact geometry in cols 6:15
 ATTR_UV_COL = 15      # uv bf16 pairs [uv0u|uv0v, uv1u|uv1v, uv2u|uv2v] ride
                       # LAST: no current material consumes uv, and XLA
                       # narrows a per-hit row gather only to a CONTIGUOUS
-                      # used prefix — with uv mid-row (round-4 layout) the
-                      # full 18 columns were fetched at pool width every
-                      # bounce (hw8 xplane: 15.4 + 3.6 ms/frame at PT
-                      # depth 2); trailing dead columns narrow for free
+                      # used prefix — with uv mid-row the full 18 columns
+                      # would be fetched at pool width every bounce;
+                      # trailing dead columns narrow for free
 
 
 def _bf16_bits(x: np.ndarray) -> np.ndarray:
@@ -101,7 +95,7 @@ def unpack_attrs_np(attrs: np.ndarray) -> dict:
 
 
 class ClusterScene(NamedTuple):
-    """Device arrays for the MXU backend. N_c clusters of C padded tris."""
+    """Device arrays for the cluster engine. N_c clusters of C padded tris."""
 
     G: jnp.ndarray            # (RAY_FEATURES, N_c*C*4) f32 intersection features
     attrs: jnp.ndarray        # (N_c*C, ATTR_COLS) f32 shading attributes +
@@ -249,7 +243,7 @@ def compile_clusters(scene: SceneData, cluster_size: int = 128,
     mat = np.asarray(scene.triangle_materials, np.float32)[rid]
     # The material id rides a bf16 half-word (A[:, 4] below): bf16 has an
     # 8-bit mantissa, so integers are exact only up to 256 — beyond that
-    # shading would silently pick wrong materials (ADVICE r3).
+    # shading would silently pick wrong materials.
     if mat.size and mat.max() > 256:
         raise ValueError(
             f"material id {int(mat.max())} exceeds the bf16-exact packing "
@@ -262,11 +256,11 @@ def compile_clusters(scene: SceneData, cluster_size: int = 128,
     A[real, ATTR_UV_COL + 0] = _pack_pairs(uv0[:, 0], uv0[:, 1])
     A[real, ATTR_UV_COL + 1] = _pack_pairs(uv1[:, 0], uv1[:, 1])
     A[real, ATTR_UV_COL + 2] = _pack_pairs(uv2[:, 0], uv2[:, 1])
-    # Original triangle id as raw bits (selected with integer ops by the
-    # Pallas kernel; -1 bit pattern for padding slots).
+    # Original triangle id as raw bits (-1 bit pattern for padding slots).
+    # No engine reads it today: trace_mxu takes ids from ``tri_id``.
     A[:, ATTR_TRI_ID_COL] = tri_id.astype(np.int32).view(np.float32)
-    # Exact [v0, e1, e2] for the winner-reconstruction Moller-Trumbore
-    # (padding rows stay zero => det = 0, rejected by the hit mask).
+    # Exact [v0, e1, e2] (padding rows stay zero). Shading derives the
+    # geometric normal from e1 x e2; v0 is not read today.
     A[real, ATTR_GEOM_COL + 0:ATTR_GEOM_COL + 3] = v0
     A[real, ATTR_GEOM_COL + 3:ATTR_GEOM_COL + 6] = v1 - v0
     A[real, ATTR_GEOM_COL + 6:ATTR_GEOM_COL + 9] = v2 - v0

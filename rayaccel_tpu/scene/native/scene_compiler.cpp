@@ -2,7 +2,7 @@
 //
 // Role of the reference's native scene-compile tier (Bvh2.cpp SAH builder +
 // ThreadPool.cpp fork-join pool + the TrianglePair pass of Scene.cpp):
-// the one part of this TPU framework that stays latency-bound host code.
+// the one part of this framework that stays latency-bound host code.
 // Re-designed rather than translated: std::thread task recursion instead
 // of a hand-rolled pool, explicit work stack instead of recursion-in-bbox
 // tricks, and plain scalar loops (the AVX2 sweeps of the reference buy

@@ -2,7 +2,7 @@
 
 The reference keeps rays and results as 32-byte / 16-byte AoS records
 (reference RayAccelerator.h:59-76) and transposes to SoA at every SIMD
-kernel boundary (Renderer.h transpose macros). On TPU we keep everything
+kernel boundary (Renderer.h transpose macros). Here everything stays
 SoA end-to-end: a ray stream is a NamedTuple of flat ``(R,)``/``(R,3)``
 arrays, which XLA lays out as contiguous vector-friendly buffers and which
 are pytrees (jit/scan/shard_map transparent).
@@ -42,7 +42,7 @@ class Hits(NamedTuple):
 
     ``u``/``v`` are barycentric coordinates in the Embree convention:
     P = (1-u-v)*v0 + u*v1 + v*v2 over the ORIGINAL triangle vertex order
-    (the Pallas/XLA backends un-rotate pair-local barycentrics before
+    (the BVH backend un-rotates pair-local barycentrics before
     returning, mirroring Kernels.h:224-238).
     """
 
@@ -60,7 +60,7 @@ class Stats(NamedTuple):
     following the reference counting rule (RayAccelerator.cpp:200, 372).
     """
 
-    rays_traced: jnp.ndarray  # () int64-ish (int32 on TPU) counter
+    rays_traced: jnp.ndarray  # () int32 counter (float32 mode)
 
 
 def make_rays(o, d, tmin=1e-3, tmax=1e6) -> Rays:

@@ -3,7 +3,7 @@
 Role of DisplayBuffer's float4 -> RGBA8 conversion (reference
 DisplayBuffer.cpp:22-74): tone-map the HDR accumulation buffer for
 display. The GL presentation path is replaced by PNG/PFM files (no
-window system on a TPU host).
+window system on a headless accelerator host).
 """
 
 from __future__ import annotations

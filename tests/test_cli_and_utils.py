@@ -117,7 +117,7 @@ def test_rmse_helper():
 def test_cli_backend_flag_mapping():
     from rayaccel_tpu.cli import build_parser, select_backend
     p = build_parser()
-    assert select_backend(p.parse_args([])) == "pallas"
+    assert select_backend(p.parse_args([])) == "mxu"
     assert select_backend(p.parse_args(["--no-gpu"])) == "xla"
     assert select_backend(p.parse_args(["--no-cpu-tracing"])) == "mxu"
     assert select_backend(p.parse_args(["--backend", "xla",
@@ -220,3 +220,88 @@ def test_set_camera_resets_and_reuses_compiled_frame():
     fresh.render_frame(jax.random.PRNGKey(5))
     np.testing.assert_array_equal(np.asarray(r.frame_buffer),
                                   np.asarray(fresh.frame_buffer))
+
+
+@pytest.mark.parametrize("name", ["pallas", "sparse"])
+def test_removed_backend_names_raise(name):
+    """The former cluster-kernel engines are gone: naming one is an error
+    that lists the engines that exist, in the configuration, the trace
+    dispatcher and the CLI."""
+    from rayaccel_tpu.ops.trace import trace
+    with pytest.raises(ValueError, match="mxu, xla, bruteforce"):
+        racc.Configuration(backend=name)
+    with pytest.raises(ValueError, match="engines are"):
+        trace(None, None, backend=name)
+    with pytest.raises(SystemExit):
+        cli_main(["--backend", name])
+
+
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.mark.parametrize("env_dir", [False, True])
+def test_compile_cache_placement(tmp_path, env_dir):
+    """With JAX_COMPILATION_CACHE_DIR set, the cache goes there and the
+    code sets no directory of its own; unset, it goes to the checkout's
+    .jax_cache. Checked in a fresh interpreter, where the variable is
+    read at JAX's start as it is in a deployment."""
+    import subprocess
+    import sys
+    env = {k: v for k, v in os.environ.items()
+           if k != "JAX_COMPILATION_CACHE_DIR"}
+    env["JAX_PLATFORMS"] = "cpu"
+    want = os.path.join(_REPO, ".jax_cache")
+    if env_dir:
+        want = str(tmp_path / "cache")
+        env["JAX_COMPILATION_CACHE_DIR"] = want
+    code = ("import jax\n"
+            "from rayaccel_tpu.utils.compile_cache import "
+            "enable_compile_cache\n"
+            "print(enable_compile_cache())\n"
+            "print(jax.config.jax_compilation_cache_dir)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=_REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == [want, want]
+
+
+def test_measurements_refuse_a_cpu_device():
+    """chip_smoke.py and bench.py measure only on a GPU: on a CPU device
+    they exit nonzero and print no result line."""
+    import subprocess
+    import sys
+    from rayaccel_tpu.utils.device import require_gpu
+    with pytest.raises(RuntimeError, match="no GPU"):
+        require_gpu()
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    for script in ("chip_smoke.py", "bench.py"):
+        out = subprocess.run([sys.executable, script], cwd=_REPO, env=env,
+                             capture_output=True, text=True, timeout=120)
+        assert out.returncode != 0, script
+        assert '"ok"' not in out.stdout and "Mrays/s" not in out.stdout
+
+
+def test_bench_exits_nonzero_when_a_config_fails(capsys):
+    """A config that raises prints its error line, the later configs still
+    run, the headline is printed again last, and the exit code is 1."""
+    import json
+    import sys
+    sys.path.insert(0, _REPO)
+    import bench
+
+    def boom():
+        raise MemoryError("out of device memory")
+
+    label = {"device": {"platform": "gpu", "kind": "test", "count": 1},
+             "card": "test card, 1 W"}
+    rc = bench.run_configs(
+        [(bench.HEADLINE, lambda: {"value": 3.0, "unit": "Mrays/s"}),
+         ("broken", boom),
+         ("after", lambda: {"value": 1.0, "unit": "Mrays/s"})], label)
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
+    assert rc == 1
+    assert [x["metric"] for x in lines] == [bench.HEADLINE, "broken",
+                                            "after", bench.HEADLINE]
+    assert lines[1]["unit"] == "error" and "MemoryError" in lines[1]["error"]
+    assert all(x["card"] == "test card, 1 W" for x in lines)
+    assert bench.run_configs([("after", lambda: {"value": 1.0})], label) == 0

@@ -1,5 +1,5 @@
 """Multi-chip tile parallelism on the virtual 8-device CPU mesh
-(BASELINE.md config 5: replicated scene, sharded waves, ICI counter psum)."""
+(bench.py config 5: replicated scene, sharded waves, psum counters)."""
 
 import numpy as np
 import jax
@@ -122,8 +122,8 @@ def test_bounce_resharding_balances_and_preserves_image(scene64):
         def fn(xs, ys, alives, key):
             rad, traced, _ = pt_trace_frame(
                 scene, env, cam, xs, ys, alives, key, max_depth=3,
-                backend="mxu", tile=512, bounce_backend="mxu",
-                mesh_axis="tiles", n_shards=D, reshard=reshard)
+                backend="mxu", tile=512, mesh_axis="tiles", n_shards=D,
+                reshard=reshard)
             return rad, traced[None]
 
         rad, traced = fn(xs, ys, alives, jax.random.PRNGKey(7))
@@ -171,7 +171,7 @@ def _mesh_frame_fixture(viewport=128, n_lanes=16384, max_depth=3, D=8):
 
 def test_whitted_resharding_balances_and_preserves_image():
     """The Whitted pooled tree loop gets the SAME cross-chip balance as
-    PT (VERDICT r4: stream stealing is integrator-agnostic in the
+    PT (stream stealing is integrator-agnostic in the
     reference, RayAccelerator.cpp:215-244): the parked level-0 stacks
     ride the exchange, radiance pieces route home, and the image is
     bitwise invariant (Whitted shading is deterministic and the engines
@@ -197,8 +197,7 @@ def test_whitted_resharding_balances_and_preserves_image():
         def fn(xs, ys, alives, key):
             rad, traced, dropped = whitted_trace_frame(
                 scene, env, cam, xs, ys, alives, key, max_depth=3,
-                stack_size=4, backend="mxu", tile=512,
-                bounce_backend="mxu", min_stage_width=1024,
+                stack_size=4, backend="mxu", tile=512, min_stage_width=1024,
                 mesh_axis="tiles", n_shards=D, reshard=reshard)
             del dropped
             return rad, traced[None]
@@ -219,7 +218,7 @@ def test_whitted_resharding_balances_and_preserves_image():
 
 
 def test_reshard_no_fire_on_mild_imbalance():
-    """Boundary pin (VERDICT r4 weak #7): when the imbalance is under the
+    """Boundary pin: when the imbalance is under the
     >25%+slack threshold, `need` stays False and the no-fire cond leaves
     the whole frame BITWISE identical to reshard=False — for both frame
     pools — and an alternating fire/no-fire frame pair agrees too."""
@@ -249,8 +248,8 @@ def test_reshard_no_fire_on_mild_imbalance():
         def fn(xs, ys, alives, key):
             rad = fn_impl(
                 scene, env, cam, xs, ys, alives, key, max_depth=3,
-                backend="mxu", tile=512, bounce_backend="mxu",
-                mesh_axis="tiles", n_shards=D, reshard=reshard, **kw)[0]
+                backend="mxu", tile=512, mesh_axis="tiles", n_shards=D,
+                reshard=reshard, **kw)[0]
             return rad
 
         return np.asarray(fn(xs, ys, alives, jax.random.PRNGKey(3)))
@@ -267,10 +266,36 @@ def test_reshard_no_fire_on_mild_imbalance():
             run(impl, a_gross, True, **kw), run(impl, a_gross, False, **kw))
 
 
-def test_sharded_pallas_backend(scene64):
-    """The Pallas kernel path must also run under the tile mesh."""
-    r = make_renderer(scene64, mesh_shape=(8,), backend="pallas")
-    stats = r.render_frame(jax.random.PRNGKey(0))
-    img = r.image()
-    assert np.isfinite(img).all() and img.max() > 0.01
-    assert int(stats.rays_traced) >= 64 * 64
+@pytest.mark.parametrize("whitted", [False, True])
+def test_mesh_frame_matches_single_device(whitted):
+    """A tile-parallel frame with bounce re-sharding renders the same
+    image, with the same ray count, as one device given the same keys:
+    camera jitter is keyed by pixel and every BSDF draw by the lane's
+    position in the unsharded frame (camera.id_uniform), never by shard.
+    Tolerance is float rounding: the two are separate compilations."""
+    sd = make_test_scene(viewport=(64, 64), max_depth=8 if whitted else 2)
+    out = {}
+    for mesh_shape in ((4,), None):
+        r = make_renderer(sd, mesh_shape=mesh_shape, whitted=whitted)
+        for i in range(2):
+            r.render_frame(jax.random.PRNGKey(20 + i))
+        out[mesh_shape] = (r.image(), r.rays_traced_total, r.dropped)
+    img4, rays4, drop4 = out[(4,)]
+    img1, rays1, drop1 = out[None]
+    assert rays4 == rays1 and drop4 == drop1 == 0
+    np.testing.assert_allclose(img4, img1, rtol=1e-5, atol=1e-6)
+
+
+def test_id_uniform_is_keyed_by_id_not_position():
+    """Draws for an id do not depend on the batch it is drawn in."""
+    import jax.numpy as jnp
+    from rayaccel_tpu.camera import id_uniform
+    key = jax.random.PRNGKey(3)
+    ids = jnp.arange(4096, dtype=jnp.int32) * 7 + 11
+    full = np.asarray(id_uniform(key, ids, 3))
+    perm = np.random.default_rng(0).permutation(4096)
+    part = np.asarray(id_uniform(key, ids[perm[:1000]], 3))
+    np.testing.assert_array_equal(part, full[perm[:1000]])
+    assert full.shape == (4096, 3)
+    assert 0.0 <= full.min() and full.max() < 1.0
+    assert abs(full.mean() - 0.5) < 0.02

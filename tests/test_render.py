@@ -116,29 +116,30 @@ def _frame_inputs(n_lanes, wave, w, h):
 
 
 def test_pt_pooled_depth2_cross_engine(small_scene):
-    """The production frame-pooled pipeline at depth 2: the mxu-bounce
-    and sparse-bounce variants share RNG keys and exact winner math, so
-    the pooled radiance must agree to float tolerance — a percent-level
-    radiance bug in the shrink/reassembly or spill bookkeeping of either
-    engine breaks this (VERDICT round-2 weak #3)."""
+    """The production frame-pooled pipeline at depth 2 on the cluster
+    engine against the same pipeline on the BVH engine: both share RNG
+    keys, so the pooled radiance agrees everywhere except the pixels
+    whose path forks at a shared-edge tie — a percent-level radiance bug
+    in the shrink/reassembly of either engine's path breaks this."""
     from rayaccel_tpu.render.pathtracer import pt_trace_frame
     from rayaccel_tpu.scene.clusters import compile_clusters
+    from rayaccel_tpu.scene.compile import compile_scene
     s = small_scene
-    cs = compile_clusters(s)
-    from rayaccel_tpu.environment import create_environment
-    env = create_environment(s.env_pixels, s.env_pixels.shape[1],
-                             s.env_pixels.shape[0])
+    scenes = {"mxu": compile_clusters(s), "xla": compile_scene(s)}
+    env = env_of(s)
     xs, ys, als = _frame_inputs(4096, 1024, 64, 64)
     cam = cam_of(s).as_arrays()
     out = {}
-    for bb in ("mxu", "sparse"):
+    for bk, scene in scenes.items():
         rad, traced, dropped = pt_trace_frame(
-            cs, env, cam, xs, ys, als, jax.random.PRNGKey(5), 2,
-            backend="mxu", tile=512, bounce_backend=bb)
+            scene, env, cam, xs, ys, als, jax.random.PRNGKey(5), 2,
+            backend=bk, tile=512)
         assert int(dropped) == 0
-        out[bb] = np.asarray(rad)
-    np.testing.assert_allclose(out["mxu"], out["sparse"],
-                               rtol=1e-4, atol=1e-5)
+        out[bk] = np.asarray(rad).reshape(-1, 3)
+    d = np.abs(out["mxu"] - out["xla"]).max(axis=-1)
+    forked = d > 0.05
+    assert forked.mean() < 0.005, f"{forked.sum()} lanes forked"
+    assert np.sqrt(np.mean(d[~forked] ** 2)) < 1e-4
 
 
 def test_pt_pooled_shrink_boundary_bitwise(small_scene):
@@ -161,8 +162,7 @@ def test_pt_pooled_shrink_boundary_bitwise(small_scene):
     for msw in (1024, 1 << 30):  # 4096 -> [4096, 1024] vs [4096]
         rad, _, dropped = pt_trace_frame(
             cs, env, cam, xs, ys, als, jax.random.PRNGKey(9), 2,
-            backend="mxu", tile=512, bounce_backend="mxu",
-            min_stage_width=msw)
+            backend="mxu", tile=512, min_stage_width=msw)
         assert int(dropped) == 0
         rads[msw] = np.asarray(rad)
     np.testing.assert_allclose(rads[1024], rads[1 << 30],
@@ -214,11 +214,11 @@ def test_pt_regroup_unbiased(small_scene):
 
 def test_pt_wave_regroup_bitwise(small_scene):
     """In-wave regrouping must be EXACTLY radiance-preserving: BSDF draws
-    are keyed by lane id (_lane_uniform), so the live-compaction
+    are keyed by lane id (camera.id_uniform), so the live-compaction
     permutation cannot touch any lane's random stream and the per-lane
     radiance must be bitwise identical with regrouping on and off.
     (Stronger than the statistical test above, which would pass with a
-    subtle per-lane RNG coupling bug — VERDICT r3 weak #7; the two
+    subtle per-lane RNG coupling bug; the two
     RENDERER paths compared there use different loop structures and can
     only agree in distribution.)
 
@@ -254,9 +254,9 @@ def test_pt_wave_regroup_bitwise(small_scene):
 
 
 def test_pt_regroup_variance_paired_seeds(small_scene):
-    """Paired-seed variance check for the FRAME-POOLED loop (VERDICT r3
-    weak #7). The in-wave bitwise test above cannot see the pooled
-    loop's cross-wave lane permutation; a subtle RNG coupling bug there
+    """Paired-seed variance check for the FRAME-POOLED loop. The in-wave
+    bitwise test above cannot see the pooled loop's cross-wave lane
+    permutation; a subtle RNG coupling bug there
     (two paths sharing uniform draws) keeps the mean image right while
     shifting second moments. Estimate per-pixel variance across K
     independent single-frame renders for pooled on/off and require the
@@ -281,25 +281,6 @@ def test_pt_regroup_variance_paired_seeds(small_scene):
     assert 0.7 < ratio < 1.4, (
         f"pooled-loop per-pixel variance differs from per-wave: "
         f"ratio={ratio:.3f} (pooled {var[True]:.5f} vs {var[False]:.5f})")
-
-
-def test_pt_pallas_backend_matches_mxu(small_scene):
-    """The Pallas work-queue kernel must agree with the XLA cluster
-    tracer given identical sampling. The kernel ranks candidates with an
-    approximate reciprocal, so equal-t edge pixels may pick a different
-    winner; everything else must match tightly."""
-    s = small_scene
-    imgs = {}
-    for backend in ("mxu", "pallas"):
-        r = racc.PathTracingRenderer(make_context(backend, regroup=False),
-                                     cam_of(s), s)
-        for i in range(2):
-            r.render_frame(jax.random.PRNGKey(7 + i))
-        imgs[backend] = r.image()
-        assert r.dropped == 0
-    diff = np.abs(imgs["pallas"] - imgs["mxu"]).max(axis=-1)
-    assert (diff > 1e-3).mean() < 0.01
-    assert np.sqrt(np.mean(diff ** 2)) < 0.02
 
 
 def test_pt_variance_decreases(small_scene):
@@ -410,8 +391,8 @@ def test_whitted_pooled_shrink_boundary(small_scene):
     for msw in (1024, 1 << 30):
         rad, traced, dropped = whitted_trace_frame(
             cs, env, cam, xs, ys, als, jax.random.PRNGKey(4), 4,
-            stack_size=6, backend="mxu", tile=512, bounce_backend="mxu",
-            shadows=True, min_stage_width=msw)
+            stack_size=6, backend="mxu", tile=512, shadows=True,
+            min_stage_width=msw)
         assert int(dropped) == 0
         rads[msw] = np.asarray(rad)
     np.testing.assert_array_equal(rads[1024], rads[1 << 30])
@@ -438,47 +419,12 @@ def test_whitted_pooled_deep_stack_tier(small_scene):
                      ("hot1_r4", dict(hot_levels=1, stage_ratio=4))):
         rad, traced, dropped = whitted_trace_frame(
             cs, env, cam, xs, ys, als, jax.random.PRNGKey(4), 6,
-            stack_size=6, backend="mxu", tile=512, bounce_backend="mxu",
-            min_stage_width=1024, **kw)
+            stack_size=6, backend="mxu", tile=512, min_stage_width=1024,
+            **kw)
         assert int(dropped) == 0
         rads[name] = np.asarray(rad)
     np.testing.assert_array_equal(rads["hot1"], rads["hot_all"])
     np.testing.assert_array_equal(rads["hot1_r4"], rads["hot_all"])
-
-
-def test_whitted_pooled_scanned_dense_bounce(small_scene):
-    """The scanned-dense bounce mode (trace the pooled bounce set in
-    fixed-width waves on a dense engine instead of one full-width
-    dispatch) must be a pure re-batching of the same math: radiance
-    equal to the unscanned dense bounce within fusion noise (scan vs
-    full-width compile with different FMA contraction; measured 1-ULP
-    diffs on ~2% of lanes)."""
-    from rayaccel_tpu.render.whitted import whitted_trace_frame
-    from rayaccel_tpu.scene.clusters import compile_clusters
-    s = type(small_scene)(**{**small_scene.__dict__, "max_depth": 4})
-    cs = compile_clusters(s)
-    from rayaccel_tpu.environment import create_environment
-    env = create_environment(s.env_pixels, s.env_pixels.shape[1],
-                             s.env_pixels.shape[0])
-    xs, ys, als = _frame_inputs(4096, 512, 64, 64)
-    cam = cam_of(s).as_arrays()
-    rads = {}
-    for scan in (None, 1024):
-        rad, traced, dropped = whitted_trace_frame(
-            cs, env, cam, xs, ys, als, jax.random.PRNGKey(8), 4,
-            stack_size=5, backend="mxu", tile=512, bounce_backend="mxu",
-            min_stage_width=1 << 30, bounce_scan=scan)
-        assert int(dropped) == 0
-        rads[scan] = np.asarray(rad)
-    np.testing.assert_allclose(rads[1024], rads[None],
-                               rtol=1e-6, atol=1e-7)
-    # Re-batching noise is FUSION noise only: every differing lane must
-    # be within a couple of ULPs (the env-miss lerp chain contracts FMAs
-    # differently per batch width; exact-equality fractions vary with
-    # XLA fusion decisions, so bound the ULP distance instead).
-    ulp = np.abs(rads[1024].view(np.int32).astype(np.int64)
-                 - rads[None].view(np.int32).astype(np.int64))
-    assert ulp.max() <= 2, f"max ULP diff {ulp.max()}"
 
 
 def test_render_api_scene_override(small_scene):
@@ -513,7 +459,7 @@ def test_render_api_scene_override(small_scene):
 
 
 def test_whitted_shadows(small_scene):
-    """Shadow rays (BASELINE config 1): the shadowed render must be
+    """Shadow rays (bench config 1): the shadowed render must be
     strictly darker than the unshadowed one where geometry blocks the
     light, never brighter anywhere."""
     s = small_scene
@@ -530,7 +476,7 @@ def test_whitted_shadows(small_scene):
 
 def test_stratified_sampler_converges_faster(small_scene):
     """Stratified (R2) sampling should reach lower error than independent
-    uniform sampling at equal spp (BASELINE config 4)."""
+    uniform sampling at equal spp (bench config 4)."""
     s = small_scene
     imgs = {}
     for sampler in ("uniform", "stratified"):
@@ -548,28 +494,3 @@ def test_stratified_sampler_converges_faster(small_scene):
     err_s = np.sqrt(np.mean((imgs["stratified"] - ref_img) ** 2))
     # Stratification should not be worse; usually clearly better.
     assert err_s < err_u * 1.1, (err_s, err_u)
-
-
-def test_engine_opts_flow_from_configuration(small_scene):
-    """Configuration's engine knobs (previously RACC_* env vars) must
-    reach the engines through the jitted frame fns: a sparse-bounce
-    render with non-default k_pairs/max_passes/sp_tile must stay exact
-    (the spill multipass guarantees exactness at ANY k) and agree with
-    the default-knob image."""
-    s = small_scene
-    imgs = {}
-    for name, kw in (("default", {}),
-                     ("tuned", dict(sparse_k_pairs=2, sparse_max_passes=12,
-                                    sparse_sp_tile=512,
-                                    sparse_pair_budget=4))):
-        # backend="mxu" + hybrid_tracing default => bounce engine is
-        # sparse, so the sparse_* knobs are on the traced path.
-        ctx = make_context("mxu", **kw)
-        r = racc.PathTracingRenderer(ctx, cam_of(s), s)
-        for i in range(2):
-            r.render_frame(jax.random.PRNGKey(55 + i))
-        imgs[name] = r.image()
-    # Same rays, same RNG; only the sparse engine's internal pass
-    # structure differs — exactness means the images agree to fp noise.
-    np.testing.assert_allclose(imgs["tuned"], imgs["default"],
-                               rtol=1e-5, atol=1e-6)

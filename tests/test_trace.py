@@ -1,5 +1,5 @@
 """Traversal correctness: the BVH backend must agree with the brute-force
-oracle — the TPU analog of the reference's cross-engine redundancy oracle
+oracle — the analog of the reference's cross-engine redundancy oracle
 (Embree CPU vs OpenCL GPU, SURVEY.md §4)."""
 
 import numpy as np
